@@ -1,13 +1,13 @@
-"""gf_orb_slam_tpu — a TPU-native monocular visual SLAM framework.
+"""gf_orb_slam_tpu — an accelerator-resident monocular visual SLAM framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of GF-ORB-SLAM
+A from-scratch JAX/XLA rebuild of the capabilities of GF-ORB-SLAM
 (ORB-SLAM v1 + observability-driven "Good Feature" selection). The map is
 struct-of-arrays device state, every per-frame computation is a fixed-shape
 jitted program, and the hot kernels (ORB extraction, Hamming matching,
-Max-logDet selection, bundle adjustment) are batched TPU programs rather than
-translations of the reference's C++ thread/pointer architecture.
+Max-logDet selection, bundle adjustment) are batched device programs rather
+than translations of the reference's C++ thread/pointer architecture.
 
-Layer map (mirrors SURVEY.md section 1, reimagined TPU-first):
+Layer map (mirrors SURVEY.md section 1, reimagined for the device):
   geometry/   SE3/SO3/quat/Sim3, pinhole+radtan camera, PWLS 13-state kinematics
   ops/        ORB pyramid extraction (FAST + rBRIEF) and Hamming matching kernels
   solvers/    pose LM, two-view initializer, EPnP RANSAC, Sim3 Horn, local BA,
@@ -15,7 +15,7 @@ Layer map (mirrors SURVEY.md section 1, reimagined TPU-first):
   gf/         Good-Feature engine: measurement Jacobians, info matrices,
               Max-logDet lazier-greedy selection, active matching
   mapping/    SoA map state, keyframe/map-point lifecycle, local mapping program
-  retrieval/  TPU-resident binary BoW vocabulary + inverted-file keyframe database
+  retrieval/  device-resident binary BoW vocabulary + inverted-file keyframe database
   loop/       loop detection, Sim3 verification, loop correction
   parallel/   sharded distributed global BA over jax.sharding meshes
   io_utils/   dataset loaders (EuRoC/TUM/NUIM + synthetic), config, trajectory IO
@@ -28,15 +28,15 @@ import os as _os
 
 import jax as _jax
 
-# JAX's DEFAULT f32 matmul precision on TPU is single-pass bfloat16 (8
-# mantissa bits). Image-path matmuls tolerate that, but the estimation stack
-# does not: normal-equation assembly (pose LM, Schur BA), information-matrix
-# whitening, and PCG all run through jnp matmuls/einsums, and bf16 Hessians
-# measurably corrupt accuracy on oblique geometry (room-circuit ATE 4.7 cm on
-# CPU vs ~17 cm on TPU with identical code, round 3). Full-f32 matmuls are
-# the correct framework default — the heavy f32 matmuls here (pyramid resize)
-# are a few GFLOP/frame, so the 3-pass cost is sub-ms, and the extraction hot
-# path is int8/explicit-bf16 and unaffected. Override via
+# JAX's DEFAULT f32 matmul precision lets the backend use reduced-precision
+# passes (TF32 on NVIDIA tensor cores: 10 mantissa bits; bfloat16 on some
+# accelerators: 8). Image-path matmuls tolerate that, but the estimation
+# stack does not: normal-equation assembly (pose LM, Schur BA),
+# information-matrix whitening, and PCG all run through jnp matmuls/einsums,
+# and reduced-precision Hessians measurably corrupt accuracy on oblique
+# geometry (room-circuit ATE 4.7 cm in full f32 vs ~17 cm with bf16 passes,
+# identical code, round 3). Full-f32 matmuls are the framework default; the
+# pyramid-resize check in chip_smoke.py holds it on the card. Override via
 # GF_MATMUL_PRECISION={bfloat16,tensorfloat32,float32} for A/B measurement.
 _prec = _os.environ.get("GF_MATMUL_PRECISION", "float32")
 if _prec not in ("bfloat16", "tensorfloat32", "float32"):

@@ -2,7 +2,7 @@
 
 The reference leans on Armadillo/Cholmod for these (logDet Util.hpp:714-731,
 g2o's dense/sparse solvers); here every op is a fixed-shape batched primitive
-that XLA maps onto the MXU/VPU. Matrices are tiny (3..13 square), so the
+that XLA maps onto the device's vector and matrix units. Matrices are tiny (3..13 square), so the
 batch dimension carries the parallelism.
 """
 

@@ -8,9 +8,9 @@ it, and only add its block if the match succeeds (failed matches consume
 budget — the anytime property). The reference does this one landmark at a
 time under a wall-clock cap with OnePoint projection searches.
 
-TPU redesign: match outcomes for all candidates are batch-precomputed (one
-dense masked Hamming program — cheaper than lazy per-point search on this
-hardware), then the sequential gain-greedy runs as a lax.scan over rounds of
+Device redesign: match outcomes for all candidates are batch-precomputed (one
+dense masked Hamming program — cheaper than lazy per-point search on an
+accelerator), then the sequential gain-greedy runs as a lax.scan over rounds of
 `chunk` attempts: per round, batched Cholesky logdets give every remaining
 candidate's marginal gain, the top-chunk are "attempted", successful ones
 contribute their info blocks, failures are struck from the pool. Budget =

@@ -7,7 +7,7 @@ logdet(M_cur + block_i) over a candidate set (everything for exact greedy, a
 random subset of ≈ (N/K)·sampleScale unselected candidates for lazier greedy,
 matching the subset-size formula at cc:2853) and commits the argmax.
 
-TPU design: the per-round candidate evaluation — the reference's inner loop of
+Device design: the per-round candidate evaluation — the reference's inner loop of
 sequential 7×7 Armadillo logdets, optionally fanned out over threads — becomes
 one batched Cholesky logdet over the whole candidate tensor; the K rounds are
 a lax.scan. Selection state is a boolean mask, not vector surgery. The
@@ -124,7 +124,7 @@ def greedy_maxlogdet_lowrank(
         logdet(cur + F_iᵀF_i) − logdet(cur) = logdet(I_r + F_i cur⁻¹ F_iᵀ)
     is computed from ONE D×D Cholesky of the accumulated matrix plus a batched
     triangular solve and an (N, r, r) einsum — no per-candidate D×D Cholesky,
-    which is what made the blockwise lazier-greedy scan cost ~80 µs/round
+    which is what made the blockwise lazier-greedy scan slow per round
     (SURVEY §7 hard-part (b): "the logDet trick decides kernel efficiency").
     Evaluating the full candidate set each round is now cheap enough that this
     is EXACT greedy (the quality ground-truth the reference's lazier variant
@@ -241,8 +241,7 @@ def lazier_greedy_maxlogdet(
 
     batch > 1 commits the top-`batch` candidates by marginal gain each round
     (k/batch rounds total). The scan's sequential latency — not the per-round
-    math — dominates on TPU (~80 µs/round through the pipeline), so batching
-    rounds is the lever; the quality cost of ignoring within-batch info
+    math — dominates, so batching rounds is the lever; the quality cost of ignoring within-batch info
     overlap is bounded and regression-tested against exact greedy.
     """
     N, D, _ = blocks.shape
@@ -305,7 +304,7 @@ def auto_maxlogdet(
     `min_gain` — the budget k is discovered, not imposed. `n_selected` reports
     the automatic budget; `k_max` only bounds the compiled round count.
 
-    TPU form: a lax.scan over k_max rounds with a sticky `stopped` flag
+    Device form: a lax.scan over k_max rounds with a sticky `stopped` flag
     (submodularity makes gains non-increasing in expectation, so the first
     sub-threshold round is the right stopping point); rounds after the stop
     are masked no-ops rather than an early exit, keeping the program static.

@@ -13,6 +13,7 @@ import ctypes
 import os
 import queue
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -27,11 +28,21 @@ def _load_native():
         return _LIB
     so = os.path.abspath(os.path.join(_NATIVE_DIR, "libgfslam_io.so"))
     if not os.path.exists(so):
+        # Build under a private name and rename it into place, so processes
+        # that build at once never load a half-written library.
         build = os.path.join(_NATIVE_DIR, "build.sh")
+        tmp = None
         try:
-            subprocess.run(["sh", build], check=True, capture_output=True, timeout=120)
-        except Exception:
+            fd, tmp = tempfile.mkstemp(prefix=".libgfslam_io.", suffix=".so",
+                                       dir=os.path.dirname(so))
+            os.close(fd)
+            subprocess.run(["sh", build, tmp], check=True, capture_output=True, timeout=120)
+            os.replace(tmp, so)
+        except (OSError, subprocess.SubprocessError):
             return None
+        finally:
+            if tmp is not None and os.path.exists(tmp):
+                os.unlink(tmp)
     try:
         lib = ctypes.CDLL(so)
     except OSError:

@@ -131,7 +131,7 @@ TEXTURE_STYLES = ("blobs", "stripes", "checker", "smooth", "mixed")
 def varied_texture(rng, tex_size: int = 1024, style: str | None = None):
     """A texture drawn from one of several families, with random gain/bias
     ("lighting"). Used to widen the vocabulary-training corpus beyond the
-    single blob family (VERDICT r2 item 8) — the descriptor statistics of
+    single blob family — the descriptor statistics of
     stripes/checker/smooth-gradient surfaces differ materially from blobs.
     Not used by the deterministic benchmark scenes."""
     if style is None:

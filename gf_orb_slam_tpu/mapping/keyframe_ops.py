@@ -312,9 +312,8 @@ def fuse_points_into_keyframes(
     411-560: neighbors' points into the new keyframe AND the new keyframe's
     points into each neighbor), BATCHED over the F targets with per-target
     candidate lists: one vmapped projection/gate/Hamming pass and ONE update
-    application replace the sequential fuse_into_keyframe calls (the round-4
-    insertion profile measured those at ~6 ms each — the sequential scatter
-    chains, not the math, were the cost).
+    application replace the sequential fuse_into_keyframe calls (their
+    sequential scatter chains, not the math, were the cost).
 
     Semantics vs the sequential loop: every target matches against its
     candidate list as of the program's START (the sequential version re-read
@@ -378,9 +377,8 @@ def fuse_points_into_keyframes(
     F, M = hit.shape
     cand_b = cand_points
 
-    # Case A: free keypoint slot → claim it. FLAT 1-D scatter (k·N + slot):
-    # multi-dimensional scatter indices lower to a much slower TPU path than
-    # a single index vector (same lesson as map_state.incidence). Duplicate
+    # Case A: free keypoint slot → claim it. FLAT 1-D scatter (k·N + slot),
+    # one index vector (as in map_state.incidence). Duplicate
     # writes resolve last-wins, as in the sequential loop.
     K, Nk = m.kf_obs_point.shape
     claim = hit & (kp_point == ms.NO_POINT)
@@ -436,9 +434,9 @@ def fuse_points_into_keyframes(
 # Distinctive descriptors (ref MapPoint::ComputeDistinctiveDescriptors) are
 # maintained window-locally inside the fused insertion program
 # (pipeline/local_mapping.py) — one scatter + medoid popcount over the BA
-# window, where all fresh observations live. A full-map min-sum pass was
-# measured at ~40 ms (8 serial scatter-min passes over K·N) for no accuracy
-# gain over the windowed medoid, so it is deliberately not provided.
+# window, where all fresh observations live. A full-map min-sum pass (8
+# serial scatter-min passes over K·N) gave no accuracy gain over the
+# windowed medoid, so it is deliberately not provided.
 # ---------------------------------------------------------------------------
 # Keyframe culling (ref LocalMapping::KeyFrameCulling, cc:562-618)
 # ---------------------------------------------------------------------------

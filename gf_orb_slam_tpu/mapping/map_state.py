@@ -109,8 +109,7 @@ def empty_map(
 def incidence(m: MapState) -> jnp.ndarray:
     """(K, P) bool — keyframe k observes point p. The master derived object.
 
-    Scattered with FLAT 1-D indices (k·P + p): multi-dimensional scatter
-    indices lower to a much slower TPU path than a single index vector."""
+    Scattered with FLAT 1-D indices (k·P + p), one index vector."""
     K, P = m.kf_capacity, m.pt_capacity
     obs = m.kf_obs_point  # (K, N)
     ok = (obs >= 0) & m.kf_valid[:, None]
@@ -122,7 +121,7 @@ def incidence(m: MapState) -> jnp.ndarray:
 
 def covisibility(m: MapState, A: jnp.ndarray | None = None) -> jnp.ndarray:
     """(K, K) int32 shared-point counts (ref KeyFrame::UpdateConnections
-    weights, KeyFrame.h:68-76) — one incidence matmul on the MXU."""
+    weights, KeyFrame.h:68-76) — one incidence matmul."""
     if A is None:
         A = incidence(m)
     Af = A.astype(jnp.float32)

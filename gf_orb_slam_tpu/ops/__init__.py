@@ -1,8 +1,8 @@
-"""TPU compute kernels: ORB extraction front-end and Hamming matching.
+"""Device compute kernels: ORB extraction front-end and Hamming matching.
 
 Reference counterparts: src/ORBextractor.cc (pyramid FAST + rBRIEF) and
-src/ORBmatcher.cc (grid-accelerated Hamming search). The TPU redesign replaces
+src/ORBmatcher.cc (grid-accelerated Hamming search). The redesign replaces
 per-keypoint scalar loops with dense whole-image vector programs and replaces
-grid bucketing with dense masked [Nq, Nt] distance matrices — the shapes the
-VPU/MXU actually like.
+grid bucketing with dense masked [Nq, Nt] distance matrices — the shapes an
+accelerator's vector and matrix units actually like.
 """

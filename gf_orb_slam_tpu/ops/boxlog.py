@@ -2,8 +2,8 @@
 
 Reference: include/BoxLOG.hpp (~480 LoC, header-only) — an integral-image
 approximation of multi-scale LoG blob detection, shipped as an experimental
-alternative to FAST and compiled out by default (ORBextractor.h:38-42). The
-TPU version needs no integral images: a box filter is a depthwise convolution
+alternative to FAST and compiled out by default (ORBextractor.h:38-42). This
+version needs no integral images: a box filter is a depthwise convolution
 with a constant kernel, and the LoG approximation (center box minus surround
 box, scale-normalized) is two such convolutions per scale — all scales
 evaluated as one batched conv, NMS over space and scale with reduce_window.

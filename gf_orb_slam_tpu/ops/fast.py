@@ -2,7 +2,7 @@
 
 Reference: the per-cell cv::FAST calls in ORBextractor::ComputeKeyPoints
 (src/ORBextractor.cc:535-758). The scalar-loop + early-exit structure of
-classic FAST is hostile to SIMD/TPU; instead we compute the exact FAST-9
+classic FAST is hostile to SIMD hardware; instead we compute the exact FAST-9
 corner *score* (the maximum threshold at which a pixel remains a corner) for
 every pixel at once with a log-depth min/roll reduction over the 16-point
 Bresenham circle, then 3×3 non-max suppression, then spatially-stratified
@@ -109,9 +109,9 @@ def detect_keypoints(
     strong = cells >= threshold
     weak = cells >= min_threshold
     rank = jnp.where(strong, cells + 1e6, jnp.where(weak, cells + 1e3, -1.0))
-    # approx_max_k: TPU-optimized partial sort (exact top_k is a full sort and
-    # dominates detection time; 95% recall on corner candidates is harmless —
-    # the per-cell cap already has 4× slack over the final quota).
+    # approx_max_k: a partial sort where the backend has one (elsewhere it is
+    # exact top_k); 95% recall on corner candidates is harmless — the
+    # per-cell cap already has 4× slack over the final quota.
     top_vals, top_idx = jax.lax.approx_max_k(rank, cell_cap, recall_target=0.95)
     top_idx = top_idx.astype(jnp.int32)
 

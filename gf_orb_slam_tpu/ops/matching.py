@@ -1,8 +1,8 @@
 """Batched Hamming-distance data association.
 
 Reference: src/ORBmatcher.cc (2402 LoC of per-keypoint grid-bucketed loops).
-TPU redesign: all search variants are one dense masked [Nq, Nt] distance
-program — XOR + popcount over packed uint32 descriptors on the VPU, candidate
+Device redesign: all search variants are one dense masked [Nq, Nt] distance
+program — XOR + popcount over packed uint32 descriptors, candidate
 gating expressed as boolean masks (projection window / pyramid level /
 epipolar distance / orientation) instead of grid bucket iteration. At SLAM
 sizes (≤2k keypoints) the dense matrix is small; masking costs nothing
@@ -28,15 +28,9 @@ BIG = jnp.int32(10_000)
 def hamming_matrix(desc_q: jnp.ndarray, desc_t: jnp.ndarray) -> jnp.ndarray:
     """(Nq, 8) × (Nt, 8) uint32 → (Nq, Nt) int32 Hamming distances.
 
-    Large shapes on TPU use the tiled Pallas kernel (ops/pallas_kernels.py),
-    which streams descriptor tiles through VMEM instead of materializing the
-    (Nq, Nt, 8) XOR intermediate; small shapes and other backends use the
-    plain XLA expression.
+    XLA fuses XOR → popcount → sum over the 8 words into one loop, so the
+    (Nq, Nt, 8) intermediate is never written to device memory.
     """
-    if jax.default_backend() == "tpu" and desc_q.shape[0] * desc_t.shape[0] >= (1 << 20):
-        from gf_orb_slam_tpu.ops.pallas_kernels import hamming_matrix_pallas
-
-        return hamming_matrix_pallas(desc_q, desc_t)
     x = jnp.bitwise_xor(desc_q[:, None, :], desc_t[None, :, :])
     return jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.int32)
 

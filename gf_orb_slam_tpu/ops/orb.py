@@ -1,11 +1,11 @@
 """ORB keypoint orientation + rBRIEF-256 descriptors, and the full extractor.
 
 Reference: ORBextractor (src/ORBextractor.cc:769-920 operator(), :131 IC_Angle,
-:204-462 pattern + computeDescriptors). TPU redesign:
+:204-462 pattern + computeDescriptors). Device redesign:
 
 * IC_Angle becomes a dense 2-channel 31×31 convolution producing the (m10, m01)
   intensity-centroid moment maps for the whole image, sampled at keypoints —
-  MXU-friendly dense compute instead of per-keypoint scalar loops.
+  matmul-friendly dense compute instead of per-keypoint scalar loops.
 * rBRIEF uses the classic 30-bin rotation quantization (2π/30 like the
   original ORB), with all 30 rotated copies of the 256-pair sampling pattern
   precomputed host-side; descriptor sampling is then a single batched gather
@@ -108,7 +108,7 @@ def moment_maps_circular(img: jnp.ndarray) -> jnp.ndarray:
 
 
 def moment_maps(img: jnp.ndarray) -> jnp.ndarray:
-    """(2, H, W) circular-disc centroid-moment maps, bf16 conv on the MXU.
+    """(2, H, W) circular-disc centroid-moment maps, as one bf16 conv.
 
     The disc support must stay circular — a square window does not commute
     with image rotation, which breaks descriptor steering. bf16 inputs halve
@@ -132,9 +132,9 @@ _MOMENT_FLAT = _moment_masks().reshape(2, -1).T  # (961, 2) numpy, closed over j
 def ic_angles(img: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
     """Keypoint orientations in radians [0, 2π) (ref IC_Angle cc:131-160).
 
-    Dense 31×31 moment convs cost ~55 ms/frame on a v5e (1-input-channel convs
-    tile terribly onto the MXU); moments are only needed AT the keypoints, so
-    gather the N 31×31 patches (one flat gather) and reduce against the two
+    Dense 31×31 moment convs over the whole image are costly
+    (1-input-channel convs map poorly onto matrix units); moments are only
+    needed AT the keypoints, so gather the N 31×31 patches (one flat gather) and reduce against the two
     disc masks with a single (N, 961) @ (961, 2) matmul instead.
     """
     h, w = img.shape
@@ -219,8 +219,8 @@ def ic_angles_rows(
 ) -> jnp.ndarray:
     """IC angles from row integrals: per keypoint, each of the 31 disc rows
     needs only (S, Sx) at the row's two ends — 124 gathered elements instead
-    of the 961-pixel patch (gathers on TPU are element-count bound at
-    ~8 ns/element, so this is the whole game).
+    of the 961-pixel patch (gather cost grows with the element count, so
+    this is the whole game).
 
     flat_S/flat_Sx: concatenated per-level padded prefix sums (row stride
     wl+1); base: per-keypoint offset of its level in the flat buffers;
@@ -294,7 +294,7 @@ assert _PATCH_R >= HALF_PATCH, (_PATCH_R, HALF_PATCH)
 def _pair_diff_matrix() -> np.ndarray:
     """(PATCH_AREA, 30·256) int8: each column holds +1 at sample point p and
     −1 at q for one (rotation bin, bit) pair, so `patch @ D` evaluates
-    I(p) − I(q) for every bit of every rotation bin in one MXU matmul."""
+    I(p) − I(q) for every bit of every rotation bin in one matmul."""
     D = np.zeros((_PATCH_AREA, N_ROT_BINS * N_BITS), np.int8)
     for b in range(N_ROT_BINS):
         for j in range(N_BITS):
@@ -330,18 +330,17 @@ def patch_orientation_brief(
     """(angles (N,), desc (N,8) uint32) from ONE patch gather + int8 matmuls.
 
     Replaces the 512-element-per-keypoint descriptor gather + the row-integral
-    orientation path (TPU gathers are element-count bound, ~8 ns/element, so
-    512·N scalar gathers ≈ 3.3 ms/frame at N=800): gather each keypoint's
+    orientation path (512·N scalar gathers at N=800): gather each keypoint's
     (2·_PATCH_R+1)² blurred patch (33×33 with the shipped pattern) as
     contiguous row slices (slice gathers move whole
     lanes, not elements), then
 
-      * IC moments = patch @ disc-masks — int8×int8→int32 on the MXU; the
+      * IC moments = patch @ disc-masks — int8×int8→int32 matmul; the
         disc is symmetric so Σx=Σy=0 over it and the −128 centering cancels
         exactly (same m10/m01 as the reference's IC_Angle over the blurred
         image, cc:131-160);
       * all 30 rotation bins' BRIEF pair differences = patch @ D in one int8
-        MXU matmul (exact int32), bin-selected per keypoint by a one-hot
+        matmul (exact int32), bin-selected per keypoint by a one-hot
         multiply-sum — no gather at all.
 
     Orientation is computed from the BLURRED patch (the reference uses the raw
@@ -412,11 +411,10 @@ class OrbConfig(NamedTuple):
     grid: int = 8
     # Descriptor backend. False (production) = row-integral IC angles +
     # (N,512) element-gather rBRIEF. True = the round-3 patch-matmul path
-    # (one int8 patch gather + int8 matmuls): measured 34.1 ms vs 8.4 ms
-    # on-chip (v5e, 2026-08-21, tools/profile_stages.py) — XLA does not
-    # lower int8 dots to the MXU, and the (N·33·33)-element patch gather
-    # alone exceeds the element-gather path's footprint. Kept for A/B and
-    # as the bit-exactness cross-check in the unit tests.
+    # (one int8 patch gather + int8 matmuls), slower where int8 dots do not
+    # reach the matrix units; the (N·33·33)-element patch gather alone
+    # exceeds the element-gather path's footprint. Kept for A/B and as the
+    # bit-exactness cross-check in the unit tests.
     patch_desc: bool = False
 
 
@@ -497,7 +495,7 @@ def extract_orb(img: jnp.ndarray, cfg: OrbConfig) -> Keypoints:
 
     if cfg.patch_desc:
         # ONE int8 slice-gather of blurred (2R+1)² patches feeds orientation
-        # moments AND all-bin BRIEF via MXU matmuls (see
+        # moments AND all-bin BRIEF via matmuls (see
         # patch_orientation_brief) — no row integrals, no element gathers.
         flat_blur_i8 = jnp.concatenate(
             [center_i8(pyr.gaussian_blur(levels[lv])).reshape(-1) for lv in used_levels]

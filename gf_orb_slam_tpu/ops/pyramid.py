@@ -27,8 +27,8 @@ def pyramid_shapes(height: int, width: int, n_levels: int, scale: float):
 
 def _resize_matrix(n_out: int, n_in: int, antialias: bool = True) -> np.ndarray:
     """(n_out, n_in) linear-interpolation matrix with triangle antialiasing —
-    resize as a dense matmul, which the MXU executes orders of magnitude
-    faster than gather-based image resize."""
+    resize as a dense matmul, which runs far faster than gather-based image
+    resize."""
     scale = n_in / n_out
     support = max(scale, 1.0) if antialias else 1.0
     A = np.zeros((n_out, n_in), np.float32)
@@ -59,8 +59,8 @@ def resize_matmul(img: jnp.ndarray, shape: tuple[int, int]) -> jnp.ndarray:
 def build_pyramid_chain(img: jnp.ndarray, n_levels: int, scale: float) -> list[jnp.ndarray]:
     """Sequential per-level cascade (each level resampled from the previous —
     the reference's ComputePyramid structure). 16 small matmuls whose latency
-    adds up (~4.3 ms/frame on a v5e); kept as the reference implementation for
-    equivalence tests of build_pyramid."""
+    adds up; kept as the reference implementation for equivalence tests of
+    build_pyramid."""
     shapes = pyramid_shapes(img.shape[0], img.shape[1], n_levels, scale)
     levels = [img.astype(jnp.float32)]
     for lv in range(1, n_levels):
@@ -73,7 +73,7 @@ def build_pyramid(img: jnp.ndarray, n_levels: int, scale: float) -> list[jnp.nda
 
     Numerically the same cascade as build_pyramid_chain (resize is linear, so
     the per-level chain composes into one constant matrix per level — composed
-    in float64 on the host), but executed as 2 batched MXU matmuls + cheap
+    in float64 on the host), but executed as 2 batched matmuls + cheap
     slices instead of 16 latency-bound small ones. Downstream per-level ops
     keep their tight shapes, so only the resize gets the batched treatment —
     a fully padded-stack pipeline was measured SLOWER (2.6× the pixels through
@@ -112,8 +112,8 @@ def build_pyramid_stack(img: jnp.ndarray, n_levels: int, scale: float) -> jnp.nd
     """All pyramid levels as ONE (L, H0, W0) tensor (level l occupies the
     top-left (h_l, w_l) corner; the rest is zero) via two batched matmuls.
 
-    The sequential per-level chain is 16 small latency-bound matmuls (~4 ms of
-    the 8.5 ms extraction on a v5e); this is 2 MXU-sized ones (~7 GFLOP)."""
+    The sequential per-level chain is 16 small latency-bound matmuls; this is
+    2 large ones (~7 GFLOP)."""
     Rr, Rc = _chain_resize_mats(img.shape[0], img.shape[1], n_levels, scale)
     t = jnp.einsum("lij,jw->liw", jnp.asarray(Rr), img.astype(jnp.float32))
     return jnp.einsum("liw,lmw->lim", t, jnp.asarray(Rc))

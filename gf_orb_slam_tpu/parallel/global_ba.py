@@ -1,9 +1,9 @@
 """Distributed global bundle adjustment: keyframe-sharded LM with a
 matrix-free PCG solve of the Schur-reduced camera system.
 
-This is the TPU-native replacement for the reference's single-threaded g2o
-GlobalBundleAdjustemnt (src/Optimizer.cc:28-142), designed for pod-scale maps
-(BASELINE.json configs 4-5, ≥70% scaling efficiency at 2+ hosts):
+This is the multi-device replacement for the reference's single-threaded g2o
+GlobalBundleAdjustemnt (src/Optimizer.cc:28-142), designed for maps sharded
+over several devices (BASELINE.json configs 4-5):
 
 * Keyframes (and their observation rows) are sharded over the mesh axis
   'kf'; point POSITIONS are replicated (P·3 floats is tiny next to
@@ -27,8 +27,8 @@ GlobalBundleAdjustemnt (src/Optimizer.cc:28-142), designed for pod-scale maps
 * Block-Jacobi preconditioner (damped U⁻¹, shard-local).
 
 All collectives are expressed with jax.lax.psum inside shard_map, so the same
-program runs on a virtual CPU mesh (tests), one real chip (mesh of 1), or a
-multi-host pod slice (mesh over ICI/DCN) without modification.
+program runs on a virtual CPU mesh (tests), one real card (mesh of 1), or
+several cards joined by NVLink without modification.
 """
 
 from __future__ import annotations

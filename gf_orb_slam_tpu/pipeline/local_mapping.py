@@ -132,9 +132,8 @@ def insert_keyframe_fused(
         # baseline-gated w_eff, so a co-located (gated-out) keyframe can
         # outrank a partner that just gained triangulated points, and the
         # top-F set here may differ from a recomputed row's. Accepted
-        # heuristic drift: recomputing the row costs ~3 ms on chip (round-4
-        # insertion profile) and fusion only needs *well-covisible* neighbors,
-        # not exactly the top-F.
+        # heuristic drift: recomputing the row costs another pass, and fusion
+        # only needs *well-covisible* neighbors, not exactly the top-F.
         fw, fuse_ids = jax.lax.top_k(w_row, n_fuse_neighbors)
         fuse_ok = fw >= 10
         # Direction-1 candidates: the UNION of the neighbors' points,
@@ -157,8 +156,7 @@ def insert_keyframe_fused(
         # Both directions in ONE batched program (5 targets): target 0 is the
         # new keyframe receiving the neighbors' point union; targets 1..F are
         # the neighbors receiving the new keyframe's points (padded to the
-        # same candidate width). Sequential per-target calls cost ≈6 ms each
-        # in the round-4 insertion profile.
+        # same candidate width) instead of sequential per-target calls.
         cand2 = m.kf_obs_point[kf_id]
         c2 = jnp.full((Mf,), ms.NO_POINT, jnp.int32).at[
             : min(cand2.shape[0], Mf)
@@ -248,7 +246,7 @@ def insert_keyframe_fused(
     # ComputeDistinctiveDescriptors via LocalMapping::ProcessNewKeyFrame,
     # cc:163-211, which recomputes only points touched by the new keyframe).
     # The full-map variant (keyframe_ops.distinctive_descriptors) needs 8
-    # serial scatter-min passes over (K·N) (~40 ms); here the BA window's
+    # serial scatter-min passes over (K·N); here the BA window's
     # observation table is already compact, so one scatter into an
     # (L, C, 8) table + a medoid popcount suffices. Window observations
     # dominate each local point's lifetime, so the medoid matches the

@@ -1,7 +1,7 @@
 """Compact per-keyframe tracking view of the map.
 
 The reference recomputes the covisibility-local map every frame
-(Tracking::UpdateReference, cc:3689-3853). On TPU that meant (K, P) incidence
+(Tracking::UpdateReference, cc:3689-3853). On the device that meant (K, P) incidence
 ops and P=16k-point frustum/Jacobian math per frame — but the local map only
 changes meaningfully at keyframe rate. This module snapshots a compact view
 (candidate ids + gathered attributes, fixed capacity) when a keyframe is

@@ -1,3 +1,3 @@
-"""TPU-resident place recognition: binary BoW vocabulary tree + keyframe
+"""Device-resident place recognition: binary BoW vocabulary tree + keyframe
 database (reference: Thirdparty/DBoW2 + src/KeyFrameDatabase.cc).
 """

@@ -1,11 +1,11 @@
-"""Binary bag-of-words vocabulary tree, TPU-resident.
+"""Binary bag-of-words vocabulary tree, device-resident.
 
 Replaces DBoW2's TemplatedVocabulary<FORB> (Thirdparty/DBoW2/DBoW2/
 TemplatedVocabulary.h, 1754 LoC of pointer-tree descent): the k-ary tree is an
 implicit complete array of packed binary centers; quantization of all N
 descriptors of a frame is L levels of batched XOR+popcount argmin; BoW
 "vectors" are dense (n_words,) tf-idf arrays so frame-to-frame similarity and
-database queries become plain matvecs on the MXU — no inverted file needed at
+database queries become plain matvecs — no inverted file needed at
 map scale (the dense score IS the inverted file's result, computed faster).
 
 Vocabulary training: hierarchical k-medians with majority-vote bit medians
@@ -354,7 +354,7 @@ def default_vocabulary_path() -> str:
     — the rebuild's ORBvoc equivalent, ref main.cc:92-97). Prefers the
     1M-word k=10 L=6 tree (reference scale, TemplatedVocabulary 1M leaves;
     round-4 stress: margin 4.30 vs the 100k tree's 2.85, near-distractor
-    margin 2.12 vs 1.66, equal quantize cost — docs/vocab_stress_r4.json),
+    margin 2.12 vs 1.66 — tools/vocab_stress.py),
     falling back to the 100k tree if absent."""
     import os
 

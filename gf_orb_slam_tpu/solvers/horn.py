@@ -2,7 +2,7 @@
 
 Used by the Sim3 solver (ref src/Sim3Solver.cc ComputeSim3's Horn method,
 cc:215-318) and the EPnP control-point alignment. SVD-based: works batched on
-TPU, handles the reflection case.
+the device, handles the reflection case.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ samples, picks the model by RH = SH/(SH+SF), then reconstructs R,t
 (ReconstructH: Faugeras's 8-motion decomposition; ReconstructF: the 4-motion
 essential decomposition) with triangulation + cheirality + parallax gating.
 
-TPU design: the "2 threads × 200 sequential samples" become one batched
+Device design: the "2 threads × 200 sequential samples" become one batched
 program — all S hypotheses for both models estimated and scored in parallel
 (vmapped DLT via 9×9 eigh + dense [S, N] symmetric-transfer scoring), then all
 4 (F) / 8 (H) motion hypotheses triangulated and scored in parallel. No
@@ -144,8 +144,8 @@ def triangulate_dlt(P1: jnp.ndarray, P2: jnp.ndarray, uv1: jnp.ndarray, uv2: jnp
 
     Inhomogeneous DLT: fix w=1 and solve the 4×3 least squares with
     closed-form 3×3 normal equations (linalg.inv3) — the homogeneous
-    nullspace needs a batched 4×4 eigendecomposition, which on TPU lowers to
-    an iterative solver and dominated the keyframe-insertion program. w=1
+    nullspace needs a batched 4×4 eigendecomposition, an iterative solver
+    that dominated the keyframe-insertion program. w=1
     only degrades for near-infinity points, which the callers' parallax and
     chirality gates reject anyway (triangulate_dlt_homogeneous kept below as
     the reference oracle)."""
@@ -157,7 +157,7 @@ def triangulate_dlt(P1: jnp.ndarray, P2: jnp.ndarray, uv1: jnp.ndarray, uv2: jnp
 
 
 def triangulate_dlt_homogeneous(P1, P2, uv1, uv2):
-    """Nullspace (eigen) DLT — exact homogeneous solution; slow on TPU."""
+    """Nullspace (eigen) DLT — exact homogeneous solution; slow (eigh)."""
     A = _dlt_rows(P1, P2, uv1, uv2)
     M = jnp.einsum("nij,nik->njk", A, A)
     x = linalg.smallest_eigvec_sym(M)

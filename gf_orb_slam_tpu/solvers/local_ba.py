@@ -5,7 +5,7 @@ Optimizer::LocalBundleAdjustment (src/Optimizer.cc:1515-1764) and
 GlobalBundleAdjustemnt (cc:28-142): points are marginalized exactly like the
 reference's setMarginalized(true) pattern, but as *batched 3×3 closed-form
 inversions* and one dense reduced-camera-system contraction that maps straight
-onto the MXU, instead of sparse Cholesky.
+onto matrix units, instead of sparse Cholesky.
 
 Problem layout (fixed shapes, mask-gated):
   poses      (C, 7)  — T_cw camera poses; `fixed` (C,) bool freezes cameras
@@ -109,8 +109,7 @@ def _lm_step(cam: CameraModel, prob: BAProblem, active, lam):
     U = jnp.einsum("cnri,cn,cnrj->cij", Jpose, w, Jpose)
     g_c = jnp.einsum("cnri,cn,cnr->ci", Jpose, w, r)
 
-    # Per-edge point-block terms, reduced onto points below via incidence
-    # matmuls (TPU scatter-add serializes; a one-hot matmul rides the MXU).
+    # Per-edge point-block terms, reduced onto points below.
     Vscat = jnp.einsum("cnri,cn,cnrj->cnij", Jpt, w, Jpt)
     gp_scat = jnp.einsum("cnri,cn,cnr->cni", Jpt, w, r)
 

@@ -8,7 +8,7 @@ measurements. The residual is the sim3 log of the loop composition
 Jacobians come from batched forward-mode autodiff of the exact residual (the
 reference hand-codes them through g2o), and the normal equations are assembled
 dense — at SLAM scale (K ≤ 512 → ≤3584 vars) one dense Cholesky beats any
-sparse machinery on the MXU.
+sparse machinery on an accelerator.
 """
 
 from __future__ import annotations

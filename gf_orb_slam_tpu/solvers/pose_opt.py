@@ -6,7 +6,7 @@ reprojection edges to fixed map points, Huber kernel δ=√5.991, staged
 optimization with chi² outlier gating 9.21/7.378/5.991/5.991 between stages
 (the reference's its[4]={10,10,7,5} rounds).
 
-TPU design: residuals/Jacobians for all N observations are one batched
+Device design: residuals/Jacobians for all N observations are one batched
 program; the normal equations are a 6×6 solve. Stages and LM iterations are
 lax.scan loops with static trip counts; outlier gating is a mask update, not
 an edge-level setLevel. The whole optimizer jits to a single XLA program.

@@ -1,7 +1,8 @@
 #!/bin/sh
-# Build the native IO runtime shared library.
+# Build the native IO runtime shared library: sh build.sh [output path].
 set -e
 cd "$(dirname "$0")"
-g++ -O3 -march=native -fPIC -shared -std=c++17 \
-    io_runtime.cpp -o libgfslam_io.so -lpng -lz -lpthread
-echo "built $(pwd)/libgfslam_io.so"
+out="${1:-libgfslam_io.so}"
+g++ -O3 -fPIC -shared -std=c++17 \
+    io_runtime.cpp -o "$out" -lpng -lz -lpthread
+echo "built $out"

@@ -1,7 +1,7 @@
 // Native IO runtime: threaded image decode + ordered prefetch queue.
 //
 // The reference's runtime is C++ end to end (ROS image transport feeding the
-// tracker thread); this is the TPU rebuild's native equivalent for the host
+// tracker thread); this is the rebuild's native equivalent for the host
 // side of the pipeline: a worker pool decodes PNG (libpng) / PGM frames ahead
 // of the tracker and hands them over strictly in sequence order, so dataset
 // IO and JPEG/PNG inflation never sit on the per-frame critical path.

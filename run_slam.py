@@ -81,11 +81,13 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
+    from gf_orb_slam_tpu.compile_cache import enable_compile_cache
     from gf_orb_slam_tpu.geometry import se3
     from gf_orb_slam_tpu.geometry.camera import CameraModel
     from gf_orb_slam_tpu.io_utils import evaluation, synthetic
     from gf_orb_slam_tpu.pipeline.system import SlamConfig, SlamSystem
 
+    enable_compile_cache()
     if args.settings:
         from gf_orb_slam_tpu.io_utils.settings import load_settings
 
@@ -232,6 +234,7 @@ def main(argv=None):
     print(json.dumps(result, indent=2, default=float))
     with open(f"{args.out}_result.json", "w") as f:
         json.dump(result, f, indent=2, default=float)
+    return result
 
 
 if __name__ == "__main__":

@@ -126,7 +126,7 @@ class TestDescriptors:
         assert np.mean(np.diag(d_rand)) > 90
 
     def test_patch_path_exact_vs_numpy(self, rng):
-        """patch_orientation_brief (int8 slice-gather + MXU matmuls) must
+        """patch_orientation_brief (int8 slice-gather + int8 matmuls) must
         reproduce, bit-exactly, a direct numpy evaluation of IC moments and
         steered-BRIEF sampling on the same int8 buffer — the matmul
         reformulation is algebra, not approximation."""

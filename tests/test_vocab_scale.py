@@ -1,6 +1,6 @@
 """Pretrained map-scale vocabulary: format round-trip at depth, and
 retrieval recall ≥ the tiny on-the-fly vocabulary on a held-out synthetic map
-(VERDICT r1 item 5; ref ships a 1M-word tree, main.cc:92-97)."""
+(ref ships a 1M-word tree, main.cc:92-97)."""
 
 import os
 

@@ -2,8 +2,8 @@
 """Distributed global BA scaling benchmark (BASELINE.json configs 4-5).
 
 Measures time per LM iteration of the keyframe-sharded global BA across mesh
-sizes and reports scaling efficiency. On a multi-chip/multi-host platform the
-mesh spans real devices (ICI/DCN); with --virtual N it uses
+sizes and reports scaling efficiency. On a multi-device host the mesh spans
+real devices; with --virtual N it uses
 xla_force_host_platform_device_count to validate the collective structure.
 
   python tools/ba_scaling_bench.py --virtual 8 --cams 64 --points 4096
@@ -31,21 +31,11 @@ def main():
     ap.add_argument("--breakdown", action="store_true",
                     help="also time the per-shard workload on a 1-device mesh "
                          "(psum = identity) to split compute vs collective cost")
-    ap.add_argument("--projection", action="store_true",
-                    help="auditable multi-chip η projection: measured per-shard "
-                         "compute (C/d cams + P/d points at d=1) + analytic "
-                         "collective payload bytes / assumed ICI bandwidth "
-                         "range + measured virtual-mesh partition overhead")
     ap.add_argument("--fast-gen", action="store_true",
                     help="synthesize observations by sampling point-id windows "
                          "per camera instead of full-visibility projection — "
-                         "required at pod scale (4096 cams x 256k points: the "
-                         "per-camera generation loop projects C*P pairs)")
-    ap.add_argument("--no-virt", action="store_true",
-                    help="skip the measured virtual-mesh overhead column (on "
-                         "this 2-core host it is noise at small problems and "
-                         "meaningless at pod scale where d shards serialize "
-                         "onto 2 cores)")
+                         "required at large scale (the per-camera generation "
+                         "loop projects C*P pairs)")
     args = ap.parse_args()
 
     if args.virtual:
@@ -72,11 +62,11 @@ def main():
 
     pts = rng.uniform([-8, -6, 5.0], [8, 6, 20.0], (P, 3)).astype(np.float32)
     if args.fast_gen:
-        # Pod-scale generation: each camera observes N points drawn from a
+        # Large-scale generation: each camera observes N points drawn from a
         # sliding id window (structured covisibility locality, like a long
         # trajectory); only the C·N observed pairs are projected, vectorized
         # in one jit, instead of all C·P pairs. Observation geometry realism
-        # only has to keep the LM numerically healthy — the η protocol
+        # only has to keep the LM numerically healthy — the benchmark
         # measures compute/collective structure, not accuracy.
         ids = np.empty((C, N), np.int64)
         span = max(P // 4, N * 4)
@@ -174,91 +164,6 @@ def bench_problem(args, cam, prob, C, P, N):
         return (time.perf_counter() - t0) / reps / args.lm_iters * 1e3, out
 
     mesh1 = global_ba.make_mesh(1)
-
-    if args.projection:
-        # ------------------------------------------------------------------
-        # η projection with auditable inputs (VERDICT r3 item 8).
-        #
-        # Per-device collective payload per LM iteration, from the program
-        # structure (parallel/global_ba.py::_make_step): with ring
-        # reduce-scatter/all-gather each device moves (d-1)/d of the array.
-        #   psum_scatter V (P,3,3)        once
-        #   psum_scatter g_p (P,3)        once
-        #   all_gather (P,3)  (V⁻¹-apply) n_pcg + 2   (RHS, each CG iter, backsub)
-        #   psum_scatter (P,3) (accum)    n_pcg + 1   (each CG iter, backsub)
-        # plus latency-bound scalar psums: 2 dots/CG iter + rz0 + 2 costs.
-        # ------------------------------------------------------------------
-        npcg = args.pcg_iters
-        t1, out1 = time_run(prob, mesh1)
-        print(f"reference d=1 full problem: {t1:.2f} ms/LM-iter "
-              f"(cost {float(out1.cost):.1f})", flush=True)
-        # Assumed per-device interconnect bandwidths (bytes/s) — v5e ICI is
-        # ~4×45 GB/s links; 2-host DCN is the pessimistic floor.
-        bands = [("pessimistic 25 GB/s (DCN-ish)", 25e9),
-                 ("nominal 90 GB/s (2 ICI links)", 90e9),
-                 ("optimistic 180 GB/s (4 ICI links)", 180e9)]
-        lat_rounds = 2 * npcg + 3  # blocking scalar-psum rounds per LM iter
-        lat_s = 5e-6               # ~µs-scale ICI collective launch latency
-        hdr = ("d | shard ms (meas) | payload MB/dev | "
-               + " | ".join(f"η {n.split()[0]}" for n, _ in bands)
-               + " | virt-mesh ovh ms (meas)")
-        print(hdr, flush=True)
-        rows = []
-        for d in [x for x in (2, 4, 8) if C % x == 0]:
-            P_pad = P + ((-P) % d)
-            # Honest per-shard model: C/d cameras AND P/d point slots — the
-            # sharded program's per-shard point work is 1/d (V inverts, V⁻¹
-            # applies); the full-size (P,·) scatter adds stay full-size, so
-            # this slightly UNDERSTATES per-shard compute; the virtual-mesh
-            # overhead column (which contains exactly those full-size pieces
-            # plus CPU-emulated collectives) bounds the understatement.
-            keep = P_pad // d
-            sub = BAProblem(
-                poses=prob.poses[: C // d],
-                points=prob.points[:keep],
-                fixed=prob.fixed[: C // d],
-                point_valid=prob.point_valid[:keep],
-                obs_uv=prob.obs_uv[: C // d],
-                obs_point=jnp.where(prob.obs_point[: C // d] < keep,
-                                    prob.obs_point[: C // d], -1),
-                obs_w=prob.obs_w[: C // d],
-            )
-            t_shard, _ = time_run(sub, mesh1)
-            bytes_dev = (d - 1) / d * 4.0 * (
-                P_pad * 9 + P_pad * 3
-                + (npcg + 2) * P_pad * 3
-                + (npcg + 1) * P_pad * 3
-            )
-            if args.no_virt:
-                # d pod-scale shards serialized onto 2 host cores measure
-                # nothing but contention; the r4 run also showed the column
-                # is noise-dominated (−7.8 ms at d=4) at small problems.
-                ovh_virt = None
-            else:
-                t_full_virt, _ = time_run(prob, global_ba.make_mesh(d))
-                ovh_virt = t_full_virt - t1  # CPU-emulated collectives+partition
-            etas = []
-            for _, bw in bands:
-                t_coll = bytes_dev / bw * 1e3 + lat_rounds * lat_s * 1e3
-                etas.append(t1 / (d * (t_shard + t_coll)))
-            rows.append((d, t_shard, bytes_dev / 1e6, etas, ovh_virt))
-            ovh_str = "   (skipped)" if ovh_virt is None else f"{ovh_virt:+8.2f}"
-            print(f"{d} | {t_shard:9.2f} | {bytes_dev/1e6:10.2f} | "
-                  + " | ".join(f"{e:5.1%}" for e in etas)
-                  + f" | {ovh_str}", flush=True)
-        import json as _json
-
-        print(_json.dumps({
-            "C": C, "P": P, "obs_per_cam": N, "pcg_iters": npcg,
-            "t1_ms": t1, "latency_rounds": lat_rounds, "latency_s": lat_s,
-            "bands": [(n, bw) for n, bw in bands],
-            "rows": [
-                {"d": d, "t_shard_ms": ts, "payload_MB_dev": mb,
-                 "eta": es, "virt_overhead_ms": ov}
-                for d, ts, mb, es, ov in rows
-            ],
-        }), flush=True)
-        return
 
     for d in sizes:
         mesh = global_ba.make_mesh(d)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Endurance at reference sequence length (VERDICT r4 item 4).
+"""Endurance at reference sequence length.
 
 The reference's benchmark sequences are 2-4k frames (MH_01 = 3682 frames,
 batch_script/Run_EuRoC.py:13,51); the longest run in this repo before round
@@ -22,7 +22,7 @@ bounded KFs/points, final ATE) so this doubles as a long-run regression
 check without living in the per-commit pytest suite.
 
 Usage:
-  python tools/endurance.py --frames 3600 --out docs/endurance_r5.json
+  python tools/endurance.py --frames 3600 --out docs/endurance.json
   python tools/endurance.py --scene planes --frames 2400 ...
 """
 
@@ -49,7 +49,7 @@ def main():
                          "revolutions of capacity churn")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--ate-gate-m", type=float, default=0.12)
-    ap.add_argument("--out", default="docs/endurance_r5.json")
+    ap.add_argument("--out", default="docs/endurance.json")
     args = ap.parse_args()
 
     if args.cpu:

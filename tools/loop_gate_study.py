@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Loop-verification gate precision/recall study (VERDICT r4 item 3).
+"""Loop-verification gate precision/recall study.
 
 The shipped verify chain (ref LoopClosing::ComputeSim3, cc:240-411) gates a
 candidate on: 3-consecutive-KF temporal consistency → Sim3-RANSAC ≥20

@@ -2,8 +2,8 @@
 """Stage attribution for the fused keyframe-insertion program: time full
 insertion against variants with pieces dialed down, chained map-to-map so
 each dispatch consumes the previous result (same discipline as
-profile_stages.py — a ~4.3 ms/link dispatch floor applies; differences
-between variants are the signal)."""
+profile_stages.py — a per-link dispatch floor applies; differences between
+variants are the signal)."""
 
 from __future__ import annotations
 
@@ -78,7 +78,7 @@ def main():
             m = out.m
         float(out.kf_id)
 
-    # --- standalone sub-stage programs (4.3 ms/link dispatch floor applies;
+    # --- standalone sub-stage programs (per-link dispatch floor applies;
     # each chains on a scalar derived from the map) ---
     from gf_orb_slam_tpu.mapping import keyframe_ops
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Relocalization recall statistic (VERDICT r4 item 5).
+"""Relocalization recall statistic.
 
 The reference's relocalization (Tracking::Relocalisation, cc:3854-4032: BoW
 candidates → SearchByBoW → EPnP-RANSAC → pose optimize → widened search) has

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""On-chip cost of the 1M-word vocabulary in the production loop-closing path
-(VERDICT r4 item 7): quantize + sparse inverted-file scoring at a FULL
-K=256 keyframe database, measured as chained dispatches on the TPU (same
-discipline as tools/profile_stages.py — ~4.3 ms/link dispatch floor, min of
-3 reps; differences between programs are the signal).
+"""Device cost of the 1M-word vocabulary in the production loop-closing path:
+quantize + sparse inverted-file scoring at a FULL K=256 keyframe database,
+measured as chained dispatches on the accelerator (same discipline as
+tools/profile_stages.py — a per-link dispatch floor, min of 3 reps;
+differences between programs are the signal).
 
 Programs measured:
   quantize         descriptor → leaf walk, N=1600 through k=10 L=6 (1M leaves)
@@ -12,7 +12,7 @@ Programs measured:
                    group scoring + top-k
   register_and_detect  the production fused per-insertion program
 
-Usage:  python tools/vocab_onchip.py            # TPU
+Usage:  python tools/vocab_onchip.py            # accelerator
         python tools/vocab_onchip.py --cpu      # functional check only
 """
 
@@ -140,9 +140,9 @@ def main():
 
     payload = {
         "K": K, "N": N, "n_words": voc.n_words,
-        "chain": args.chain, "link_floor_ms": 4.3,
+        "chain": args.chain,
         "programs_ms": results,
-        "note": ("chained dispatches; ~4.3 ms/link floor applies to each "
+        "note": ("chained dispatches; a per-link floor applies to each "
                  "number — deltas between programs are the signal. "
                  "register_and_detect includes a db copy per link (the "
                  "production call donates instead)"),

@@ -1,4 +1,4 @@
-"""Vocabulary stress test at map scale (VERDICT r2 item 8).
+"""Vocabulary stress test at map scale.
 
 The reference ships a 1M-leaf DBoW2 tree (main.cc:92-97) and its retrieval
 quality is what loop detection and relocalization live on. This tool measures
@@ -45,7 +45,7 @@ def build_views(n_kf: int, n_q: int, seed: int = 0, revs: float = 2.0,
     widened texture family (seed range disjoint from every training corpus:
     the packaged 100k tree trained on default textures, the 1M candidate on
     varied seeds 1000+s) — retrieval is then measured out-of-domain for all
-    candidate trees, per VERDICT r3 weak #5."""
+    candidate trees."""
     import jax.numpy as jnp
     import numpy as np
 
